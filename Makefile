@@ -16,7 +16,8 @@ test: native
 # `make check` = the one-command acceptance run (reference demo analogue,
 # /root/reference/Makefile:21-22 + demo/runme.sh): full test suite, then
 # the E. coli-scale bench with its engine-identity and three-way output
-# checks (bench.py asserts are printed in its JSON line).
+# checks (bench.py asserts are printed in its JSON line).  The bench needs
+# a GPU; NTEDIT_BENCH_MINI=1 runs its CPU shakeout shapes instead.
 check: test
 	$(PYTHON) bench.py
 
@@ -24,4 +25,4 @@ bench: native
 	$(PYTHON) bench.py
 
 lint:
-	$(PYTHON) -m compileall -q ntedit_tpu tests bench.py __graft_entry__.py
+	$(PYTHON) -m compileall -q ntedit_tpu tests bench.py chip_smoke.py __graft_entry__.py

@@ -17,9 +17,9 @@ hermetic demo inputs, across six mode configurations:
 
 demo/runme.sh then diffs the FRAMEWORK's outputs against these — the
 acceptance bar is byte-identity with the reference engine itself, not
-with a prior run of this code (retires VERDICT r2 "self-produced
-goldens").  VCF goldens are stored with the ##source/##fileDate header
-lines stripped (program name / clock differ legitimately).
+with a prior run of this code.  VCF goldens are stored with the
+##source/##fileDate header lines stripped (program name / clock differ
+legitimately).
 
 Usage:  make -C native reference_ntedit && python demo/make_goldens.py
 """
@@ -59,7 +59,6 @@ def main() -> None:
         raise SystemExit("build the reference first: make -C native reference_ntedit")
     os.environ.setdefault("NTEDIT_TPU_DEVICE_BUILD", "0")
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    os.environ.setdefault("NTEDIT_TPU_PLATFORM", "cpu")
 
     from ntedit_tpu import cli
     from ntedit_tpu.core import bfbuild

@@ -17,7 +17,7 @@ python "$HERE/make_demo.py" .
 # hermetic configuration: host-side filter build + CPU backend so the
 # outputs are reproducible on any machine (device and host probes are
 # bit-identical — property-tested — so this pins bytes, not behaviour)
-export NTEDIT_TPU_DEVICE_BUILD=0 JAX_PLATFORMS=cpu NTEDIT_TPU_PLATFORM=cpu
+export NTEDIT_TPU_DEVICE_BUILD=0 JAX_PLATFORMS=cpu
 
 novcf() { grep -v -e '^##source=' -e '^##fileDate=' "$1"; }
 

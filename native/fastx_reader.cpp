@@ -24,19 +24,26 @@ namespace {
 
 constexpr size_t kBlock = 1 << 20;
 
+constexpr size_t kNoMark = static_cast<size_t>(-1);
+
 struct Reader {
   gzFile gz = nullptr;
   std::vector<uint8_t> buf;   // decoded pending bytes
   size_t pos = 0;             // consume cursor into buf
+  size_t mark = kNoMark;      // start of the record being parsed: kept
+                              // buffered so an overflowing record can be
+                              // re-read whole by the next call
   bool eof = false;
   int fmt = 0;                // 0 unknown, '>' fasta, '@' fastq
   std::string err;
 
   bool fill() {
     if (eof) return pos < buf.size();
-    if (pos > 0) {
-      buf.erase(buf.begin(), buf.begin() + static_cast<long>(pos));
-      pos = 0;
+    size_t drop = mark == kNoMark ? pos : (mark < pos ? mark : pos);
+    if (drop > 0) {
+      buf.erase(buf.begin(), buf.begin() + static_cast<long>(drop));
+      pos -= drop;
+      if (mark != kNoMark) mark -= drop;
     }
     size_t old = buf.size();
     buf.resize(old + kBlock);
@@ -122,7 +129,9 @@ void ntpu_fastx_close(void* h) {
 // qual_buf at the same offsets as the sequence (equal lengths enforced).
 // Returns the number of records delivered; 0 on EOF; -1 on malformed
 // input; -2 if a single record exceeds the buffer capacity (caller
-// retries with bigger buffers).  *is_fastq is set to 1 for FASTQ.
+// retries with bigger buffers).  A record that does not fit is not
+// consumed: the next call starts at its header.  *is_fastq is set to 1
+// for FASTQ.
 long ntpu_fastx_next(void* h, uint8_t* seq_buf, long seq_cap, long* seq_offs,
                      uint8_t* hdr_buf, long hdr_cap, long* hdr_offs,
                      uint8_t* qual_buf, int* is_fastq, long max_rec) {
@@ -138,14 +147,21 @@ long ntpu_fastx_next(void* h, uint8_t* seq_buf, long seq_cap, long* seq_offs,
   long sw = 0, hw = 0;  // write cursors
   seq_offs[0] = 0;
   hdr_offs[0] = 0;
+  // a record that outgrows a buffer is rewound to its header
+  auto overflow = [&]() -> long {
+    r->pos = r->mark;
+    r->mark = kNoMark;
+    return n > 0 ? n : -2;
+  };
   while (n < max_rec) {
     int c = r->peek();
     if (c < 0) break;
+    r->mark = r->pos;
     size_t len = 0;
     const uint8_t* l = r->line(&len);
     if (l == nullptr) break;
     if (l[0] != r->fmt) return -1;
-    if (hw + static_cast<long>(len) - 1 > hdr_cap) return n > 0 ? n : -2;
+    if (hw + static_cast<long>(len) - 1 > hdr_cap) return overflow();
     memcpy(hdr_buf + hw, l + 1, len - 1);
     hw += static_cast<long>(len) - 1;
 
@@ -156,14 +172,14 @@ long ntpu_fastx_next(void* h, uint8_t* seq_buf, long seq_cap, long* seq_offs,
         if (nx < 0 || nx == '>') break;
         l = r->line(&len);
         if (l == nullptr) break;
-        if (sw + static_cast<long>(len) > seq_cap) return n > 0 ? n : -2;
+        if (sw + static_cast<long>(len) > seq_cap) return overflow();
         memcpy(seq_buf + sw, l, len);
         sw += static_cast<long>(len);
       }
     } else {
       l = r->line(&len);  // sequence line (single-line FASTQ)
       if (l == nullptr) return -1;
-      if (sw + static_cast<long>(len) > seq_cap) return n > 0 ? n : -2;
+      if (sw + static_cast<long>(len) > seq_cap) return overflow();
       memcpy(seq_buf + sw, l, len);
       sw += static_cast<long>(len);
       long seq_len = sw - seq_offs[n];
@@ -178,6 +194,7 @@ long ntpu_fastx_next(void* h, uint8_t* seq_buf, long seq_cap, long* seq_offs,
     hdr_offs[n] = hw;
     (void)seq_start;
   }
+  r->mark = kNoMark;
   return n;
 }
 

@@ -4,9 +4,9 @@
 // 1747-2151 / tryIndels 1548-1744 / tryDeletion 1451-1545 / makeEdit
 // 1250-1448, with the clean-spec deviations listed in FIDELITY.md).
 //
-// Division of labour (the TPU-first design): the dense per-base flag pass —
-// the throughput-dominant work — runs on the TPU
-// (ntedit_tpu.engine.flag / ops.flag_kernel); this library performs the
+// Division of labour: the dense per-base flag pass — the throughput-
+// dominant work — runs on the accelerator (ntedit_tpu.engine.flag, plain
+// JAX compiled by XLA); this library performs the
 // sparse, branchy trial-and-verify repair at the flagged sites, fast-
 // forwarding over stretches the device proved clean.  It replaces the
 // reference's OpenMP C++ hot loop with a gate-hint-driven native scan, and

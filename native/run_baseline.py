@@ -81,7 +81,7 @@ def measure_scale(binary: str):
         from ntedit_tpu.parallel import mesh as pmesh
 
         # per-row device calls with ON-DEVICE OR accumulation (a batched
-        # [R, 16M, 3] index tensor exceeds HBM), one final download; the
+        # [R, 16M, 3] index tensor exceeds device memory), one final download; the
         # last row's zero padding inserts a handful of junk windows (no
         # validity mask in build_bf_words) — negligible FPR noise for a
         # throughput baseline

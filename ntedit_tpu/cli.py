@@ -325,7 +325,7 @@ def _run_engine_multihost(
 
     The reference's only parallelism is per-contig OpenMP threads in one
     address space (/root/reference/ntedit.cpp:2213); this is the scale-out
-    equivalent the TPU runtime gets for free from the JAX multi-controller
+    equivalent the accelerator runtime gets from the JAX multi-controller
     model (SURVEY.md §5.8)."""
     import io as _io
 
@@ -567,7 +567,7 @@ def _add_common(sp) -> None:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="ntedit_tpu",
-        description="ntEdit-TPU: fast, scalable genome sequence polishing "
+        description="ntEdit on a GPU: fast, scalable genome sequence polishing "
                     "and SNV detection & annotation",
     )
     sub = ap.add_subparsers(dest="mode")

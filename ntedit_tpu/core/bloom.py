@@ -1,5 +1,5 @@
 """K-mer Bloom filters: host representation, btllib-compatible file format,
-and HBM-resident device probing.
+and device-resident probing.
 
 Reference contracts replicated (see SURVEY.md §2.2):
 
@@ -18,8 +18,9 @@ Reference contracts replicated (see SURVEY.md §2.2):
   writer) — pinned by round-trip tests; revalidate against a real btllib
   artifact when one is available.
 
-Device side: the bit array lives in HBM as uint32 words; ``contains`` is a
-batched gather + bit-test over [n, m] probe indices (the TPU-native form of
+Device side: the bit array lives in device memory as uint32 words;
+``contains`` is a batched gather + bit-test over [n, m] probe indices (the
+data-parallel form of
 the reference's pointer-chasing inner loop, ntedit.cpp:3.3 call stack).
 Power-of-two sizing (framework-native filters) turns the 64-bit modulo into
 a mask; btllib-sized filters use exact Barrett reduction
@@ -184,9 +185,9 @@ class KmerCountingBloomFilter8:
 class BlockedKmerBloomFilter:
     """Framework-native register-blocked k-mer Bloom filter.
 
-    TPU-first design: a standard BF costs ``hash_num`` independent HBM
-    gathers per probe (the btllib layout above); on TPU those random
-    gathers dominate the dense flag pass.  Here all ``hash_num`` probe bits
+    A standard BF costs ``hash_num`` independent device-memory gathers
+    per probe (the btllib layout above), and those random gathers
+    dominate the dense flag pass.  Here all ``hash_num`` probe bits
     of a k-mer live in ONE uint32 word, so a probe is a single gather plus
     bit tests, and no multi-hash mixing is needed at all: the word index is
     the low bits of the canonical ntHash value and the bit offsets are
@@ -346,7 +347,7 @@ def _load(path: str):
 
 @jax.tree_util.register_pytree_node_class
 class DeviceFilter:
-    """HBM-resident filter for batched probing under jit.
+    """Device-resident filter for batched probing under jit.
 
     ``words`` is the bit array as little-endian uint32 (presence filter) and
     ``counters`` the uint8 count-min array (or None).  The Barrett divisor
@@ -397,8 +398,8 @@ class DeviceFilter:
         if self.blocked:
             return self._contains_blocked(hashes[0])
         if self.bits > (1 << 36):
-            # word index would overflow int32 (XLA:TPU has no int64 gather
-            # indices); filters this large are sharded across hosts instead
+            # word index would overflow the int32 gather indices used
+            # here; filters this large are sharded across hosts instead
             # (ntedit_tpu.parallel).
             raise NotImplementedError("single-device filter limited to 2^36 bits (8 GiB)")
         ok = None

@@ -22,9 +22,9 @@ code; it is the algebra of the hash:
   Bloom-filter hashes from the canonical one by 64-bit multiply/xor-shift
   mixing (ntHash's published multi-hash recurrence).
 
-The TPU kernels (ntedit_tpu.core.nthash) implement the same functions on
-uint32 pairs (XLA:TPU has no native u64) and are property-tested for
-equality against this module.
+The device code (ntedit_tpu.core.nthash) implements the same functions on
+uint32 pairs (ntedit_tpu.utils.u64) and is property-tested for equality
+against this module.
 
 NOTE: the seed constants below are the published ntHash constants.  btllib
 is not installable in this environment, so bit-level identity against
@@ -262,7 +262,7 @@ def _win_dists(L: int, k: int):
 
 def all_window_hashes(seq: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
     """(fh, rh) for every window start 0..L-k, via the prefix-XOR-scan
-    formulation (the same algebra the TPU dense pass uses):
+    formulation (the same algebra the device dense pass uses):
 
       fh(h)  = srol^{h+k-1}( PX[h+k] ^ PX[h] ),
       PX[j]  = XOR_{t<j} srol^{-t}(seed(s_t))

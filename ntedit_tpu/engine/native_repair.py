@@ -1,7 +1,7 @@
 """ctypes bindings for the native sparse-repair engine
 (native/repair.cpp — the C++ implementation of the oracle spec).
 
-The native engine consumes TPU-computed gate hints and performs the exact
+The native engine consumes device-computed gate hints and performs the exact
 sequential scan-and-repair of ``Oracle.polish_contig`` at native speed;
 its output is reconstructed into the same ``ContigResult`` (contig buffer
 with substitutions/masks applied, RopeCells node stream for indels, SubRec
@@ -59,15 +59,19 @@ class _NtrParams(ctypes.Structure):
     ]
 
 
-def _build_lib() -> bool:
+def _build_lib() -> Optional[str]:
+    """Build the library from the tracked sources; returns None on
+    success, else the build's error text."""
     try:
-        subprocess.run(
+        res = subprocess.run(
             ["make", "-C", _NATIVE_DIR, "libntedit_repair.so"],
-            check=True, capture_output=True, timeout=120,
+            capture_output=True, text=True, timeout=300,
         )
-        return os.path.exists(_LIB_PATH)
-    except Exception:
-        return False
+    except (OSError, subprocess.TimeoutExpired) as exc:
+        return f"make failed to run: {exc}"
+    if res.returncode != 0 or not os.path.exists(_LIB_PATH):
+        return f"make exited {res.returncode}: {res.stderr.strip()[-2000:]}"
+    return None
 
 
 def get_lib():
@@ -80,10 +84,11 @@ def get_lib():
         os.path.exists(src)
         and os.path.getmtime(src) > os.path.getmtime(_LIB_PATH)
     ):
-        if not _build_lib():
+        err = _build_lib()
+        if err is not None:
             # a stale library must not silently stand in for the checked-in
             # source: treat a failed rebuild as unavailable
-            _lib_error = "build failed"
+            _lib_error = err
             return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
@@ -114,6 +119,12 @@ def get_lib():
 
 def available() -> bool:
     return get_lib() is not None
+
+
+def build_error() -> Optional[str]:
+    """Why the library is unavailable (None when it loaded)."""
+    get_lib()
+    return _lib_error
 
 
 def _filter_desc(bf) -> Optional[tuple]:

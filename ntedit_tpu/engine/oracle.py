@@ -5,7 +5,7 @@ This is a from-scratch Python implementation of the algorithm contract
 documented in SURVEY.md §2.4 (reference: /root/reference/ntedit.cpp,
 ``kmerizeAndCorrect`` 1747-2151, ``tryIndels`` 1548-1744, ``tryDeletion``
 1451-1545, ``makeEdit`` 1250-1448, rope ops 613-922).  It exists to be
-*read and trusted*: every vectorized TPU engine pass is property-tested
+*read and trusted*: every vectorized device engine pass is property-tested
 for equivalence against this oracle, and the C++ CPU baseline implements
 the same spec.
 

@@ -7,7 +7,7 @@ batched over MANY sites at once.  Every reference "roll loop" becomes
 "hashes of consecutive windows of a patched sequence", which the rolling
 recurrences guarantee equal (tests/test_nthash.py::test_roll_matches_scratch).
 This is the blueprint (and host reference) of the on-device repair machine;
-the probe backend is swappable (numpy here, jnp gathers on TPU).
+the probe backend is swappable (numpy here, jnp gathers on device).
 
 Batched evaluation applies only at *pristine* sites — the k-window plus the
 trial lookahead lies in untouched contiguous original cells away from the

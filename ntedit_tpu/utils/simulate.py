@@ -89,6 +89,32 @@ def inject_errors(
     return np.concatenate(out), edits
 
 
+def write_reads_fastq(path: str, genome: np.ndarray, coverage: float = 30.0,
+                      read_len: int = 150, err_rate: float = 0.01,
+                      seed: int = 3) -> int:
+    """Shotgun reads of ``genome`` as uncompressed FASTQ: uniform start
+    positions, both strands, independent substitution errors at
+    ``err_rate`` per base.  Returns the number of reads written."""
+    rng = np.random.default_rng(seed)
+    n = int(len(genome) * coverage / read_len)
+    starts = rng.integers(0, len(genome) - read_len + 1, size=n)
+    reads = genome[starts[:, None] + np.arange(read_len)[None, :]]
+    rc = rng.random(n) < 0.5
+    comp = np.zeros(256, dtype=np.uint8)
+    for a, b in zip(b"ACGT", b"TGCA"):
+        comp[a] = b
+    reads[rc] = comp[reads[rc, ::-1]]
+    err = rng.random(reads.shape) < err_rate
+    shift = rng.integers(1, 4, size=int(err.sum()))
+    code = np.searchsorted(BASES, reads[err])
+    reads[err] = BASES[(code + shift) % 4]
+    qual = b"I" * read_len
+    with open(path, "wb") as f:
+        for i, r in enumerate(reads):
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, r.tobytes(), qual))
+    return n
+
+
 def truth_bf(truth: np.ndarray, k: int, hash_num: int = 3, fpr: float = 0.001) -> bloom.KmerBloomFilter:
     n_kmers = max(1, len(truth) - k + 1)
     bf = bloom.KmerBloomFilter.zeros(max(64, bloom.bf_size_bytes(n_kmers, hash_num, fpr)), hash_num, k)

@@ -1,10 +1,9 @@
 """64-bit unsigned integer math on uint32 pairs, in JAX.
 
-XLA:TPU has no native 64-bit integer support (and Pallas/Mosaic kernels are
-32-bit only), so every 64-bit quantity in the compute path — ntHash values,
-Bloom-filter probe indices — is represented as a pair ``(hi, lo)`` of
-``uint32`` arrays.  All helpers here are shape-polymorphic, jit-safe, and
-usable inside Pallas kernel bodies (pure jnp ops on uint32).
+JAX runs with 64-bit types disabled by default, so every 64-bit quantity
+in the compute path — ntHash values, Bloom-filter probe indices — is
+represented as a pair ``(hi, lo)`` of ``uint32`` arrays.  All helpers here
+are shape-polymorphic and jit-safe (pure jnp ops on uint32).
 
 The split-rotation (``srol``) helpers implement ntHash2's 33/31-bit split
 rotate; see ntedit_tpu.core.nthash_ref for the algebra and its mapping to
@@ -66,8 +65,7 @@ def eq(a, b):
 def lt(a, b):
     """Unsigned a < b.
 
-    uint32 comparisons lower correctly on TPU (XLA emits unsigned compares
-    for unsigned dtypes)."""
+    XLA emits unsigned compares for unsigned dtypes."""
     return (a[0] < b[0]) | ((a[0] == b[0]) & (a[1] < b[1]))
 
 

@@ -1,14 +1,13 @@
 """ntedit_baseline's insertion low-complexity rollback vs the oracle.
 
-VERDICT r3 weak #3 retired: the scalar baseline previously approximated
-the reference's accumulated-run rollback (ntedit.cpp:1312-1380); it now
-implements it exactly with flat-string run bookkeeping.  Pinned here on
-corpora BUILT to trigger the guard — long deletions inside tandem
-repeats, where the engine re-inserts the repeat word until the
-accumulated run reaches k and rolls back — by byte-comparing the
-binary's edited output against the sequential spec engine (oracle.py,
-itself byte-identical to the compiled reference across 13 configs,
-tests/test_reference_binary.py).
+The scalar baseline previously approximated the reference's
+accumulated-run rollback (ntedit.cpp:1312-1380); it now implements it
+exactly with flat-string run bookkeeping. Pinned here on corpora BUILT to
+trigger the guard — long deletions inside tandem repeats, where the engine
+re-inserts the repeat word until the accumulated run reaches k and rolls
+back — by byte-comparing the binary's edited output against the sequential
+spec engine (oracle.py, itself byte-identical to the compiled reference
+across 13 configs, tests/test_reference_binary.py).
 """
 
 import json

@@ -213,7 +213,7 @@ def test_threads_byte_identical_multi_contig(workdir):
 
 def test_estimated_draft_bytes_gz(tmp_path):
     """spill='auto' must see through gzip: a compressed multi-hundred-MB
-    draft is exactly the expensive-restart case (ADVICE r4).  The .gz
+    draft is exactly the expensive-restart case.  The .gz
     estimate reads the gzip trailer ISIZE; a wrapped/absent trailer falls
     back to 4x the compressed size."""
     import gzip

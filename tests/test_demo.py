@@ -42,7 +42,7 @@ def test_demo_all_modes_against_reference_goldens(tmp_path):
     goldens produced by the UNMODIFIED reference engine
     (demo/make_goldens.py), 9 golden files total."""
     env = dict(os.environ)
-    env["NTEDIT_TPU_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     res = subprocess.run(
         ["bash", os.path.join(DEMO, "runme.sh"), str(tmp_path)],
         capture_output=True, text=True, timeout=800, env=env,

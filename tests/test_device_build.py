@@ -1,7 +1,7 @@
 """On-device BF construction (DeviceFilterBuilder) vs host semantics.
 
 Forced onto the CPU backend via NTEDIT_TPU_DEVICE_BUILD=1 — the same jit
-stages run compiled on the TPU.
+stages run compiled on the GPU.
 """
 
 import gzip
@@ -121,7 +121,7 @@ def test_device_build_plain_layout_matches_host(tmp_path, reads, monkeypatch):
     bf_dev = builder.finish()
     assert isinstance(bf_dev, bloom.KmerBloomFilter)
     with pytest.raises(RuntimeError):
-        builder.finish()  # clear already-finished error (ADVICE r3 #1)
+        builder.finish()  # clear already-finished error
     host = bloom.KmerBloomFilter.zeros(nbits // 8, hnum, k)
     for h in bfbuild._iter_hash_batches([path], k):
         host.insert_hashes(nh.extend_hashes_vec(h, k, hnum))

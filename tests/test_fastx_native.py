@@ -56,3 +56,34 @@ def test_native_large_roundtrip(tmp_path):
     assert len(recs) == len(seqs)
     for r, s in zip(recs, seqs):
         assert bytes(r.seq) == bytes(s)
+
+
+@pytest.mark.parametrize("layout", ["fasta_single_line", "fasta_wrapped",
+                                    "fastq"])
+def test_records_larger_than_the_batch_buffer(tmp_path, monkeypatch, layout):
+    """A record that outgrows the batch buffer is re-read whole after the
+    buffer grows: no record is dropped or split, whether it is the first
+    of a batch or arrives after others."""
+    if native.get_lib() is None:
+        pytest.skip("libntpu_io.so not built")
+    monkeypatch.setattr(native, "_SEQ_CAP", 256)
+    monkeypatch.setattr(native, "_HDR_CAP", 64)
+    rng = np.random.default_rng(4)
+    lens = [100, 3000, 50, 700, 9000, 10, 255, 256, 257, 1200]
+    seqs = [bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), size=n))
+            for n in lens]
+    path = tmp_path / ("x.fq" if layout == "fastq" else "x.fa")
+    with open(path, "wb") as f:
+        for i, s in enumerate(seqs):
+            hdr = b"c%d %s" % (i, b"x" * (90 if i == 3 else 3))
+            if layout == "fastq":
+                f.write(b"@%s\n%s\n+\n%s\n" % (hdr, s, b"I" * len(s)))
+            elif layout == "fasta_wrapped":
+                lines = [s[j:j + 60] for j in range(0, len(s), 60)]
+                f.write(b">%s\n%s\n" % (hdr, b"\n".join(lines)))
+            else:
+                f.write(b">%s\n%s\n" % (hdr, s))
+    got = list(fastx.read_fastx(str(path)))
+    assert [r.name for r in got] == [f"c{i}" for i in range(len(seqs))]
+    assert [bytes(r.seq) for r in got] == seqs
+    assert got[3].comment == "x" * 90

@@ -202,7 +202,7 @@ def test_capacity_retry_restarts_pristine():
 
 def test_param_validation_rejects_bad_k():
     """The C ABI must reject out-of-range params instead of overflowing
-    fixed buffers (ADVICE r1)."""
+    fixed buffers."""
     truth = simulate.random_genome(2000, seed=160)
     bf = simulate.truth_bf(truth, 25)
     cfg = EngineConfig(k=bf.k, hash_num=bf.hash_num)

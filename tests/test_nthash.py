@@ -1,5 +1,5 @@
 """ntHash2 correctness: algebraic invariants of the NumPy spec, and
-bit-identity of the JAX/TPU implementation against the spec.
+bit-identity of the JAX device implementation against the spec.
 
 The reference engine relies on these exact identities
 (/root/reference/ntedit.cpp:403-452); with btllib unavailable in this

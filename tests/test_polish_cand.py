@@ -1,5 +1,5 @@
-"""Device pre-verification of polish substitution candidates (VERDICT r2
-#7): flag.polish_candidate_masks computes, on device, the engine's
+"""Device pre-verification of polish substitution candidates:
+flag.polish_candidate_masks computes, on device, the engine's
 first-level contains(changelast) probe for every gated head on the
 pristine draft; repair.cpp consults the mask only at provably-pristine
 windows, so the native result is BIT-IDENTICAL with or without masks.

@@ -184,7 +184,7 @@ def test_polisher_wavefront_vs_sequential_engine():
 
 def test_snv_candidate_hint_equals_full_scan():
     """SNV through the wavefront with the device candidate hint (the
-    Polisher fallback path, VERDICT r3 weak #5) == oracle full scan."""
+    Polisher fallback path) == oracle full scan."""
     from ntedit_tpu.engine import flag
     from ntedit_tpu.utils import simulate
 
